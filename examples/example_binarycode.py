@@ -13,8 +13,8 @@ import time
 
 import numpy as np
 
-from manisdp_tpu import solve_unitdiag
-from manisdp_tpu.frontends.lasserre import dense_sdp_relax
+from manisdp import solve_unitdiag
+from manisdp.frontends.lasserre import dense_sdp_relax
 
 
 def main():

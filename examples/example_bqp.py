@@ -12,9 +12,9 @@ import time
 
 import numpy as np
 
-from manisdp_tpu import solve_dual_unitdiag, solve_unitdiag
-from manisdp_tpu.frontends.moments import bqpmom
-from manisdp_tpu.frontends.sos import assemble_bqpsos
+from manisdp import solve_dual_unitdiag, solve_unitdiag
+from manisdp.frontends.moments import bqpmom
+from manisdp.frontends.sos import assemble_bqpsos
 
 
 def main():

@@ -12,12 +12,12 @@ import time
 
 import numpy as np
 
-from manisdp_tpu.frontends.sparse_moments import (bqpmom_sparse,
-                                                  bqpsos_sparse,
-                                                  clique_chain,
-                                                  sparse_objective_basis)
-from manisdp_tpu.solvers.dual_multiblock import solve_dual_multiblock
-from manisdp_tpu.solvers.multiblock import solve_multiblock
+from manisdp.frontends.sparse_moments import (bqpmom_sparse,
+                                              bqpsos_sparse,
+                                              clique_chain,
+                                              sparse_objective_basis)
+from manisdp.solvers.dual_multiblock import solve_dual_multiblock
+from manisdp.solvers.multiblock import solve_multiblock
 
 
 def main():

@@ -15,8 +15,8 @@ import time
 import numpy as np
 import scipy.sparse as sp
 
-from manisdp_tpu import solve_unittrace
-from manisdp_tpu.frontends.workloads import hamming_theta
+from manisdp import solve_unittrace
+from manisdp.frontends.workloads import hamming_theta
 
 
 def main():
@@ -30,7 +30,7 @@ def main():
                           tol=1e-8, max_outer=300)
     t = time.time() - t0
     theta = -res.obj
-    print(f"ManiSDP-TPU: theta(H({k},{{1}})) = {theta:0.8f} "
+    print(f"ManiSDP-JAX: theta(H({k},{{1}})) = {theta:0.8f} "
           f"(exact {2 ** (k - 1)}), eta = {res.eta:0.1e}, "
           f"time = {t:0.2f}s")
 

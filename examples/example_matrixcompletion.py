@@ -12,8 +12,8 @@ import time
 
 import numpy as np
 
-from manisdp_tpu import solve_sdp
-from manisdp_tpu.frontends.workloads import matrix_completion
+from manisdp import solve_sdp
+from manisdp.frontends.workloads import matrix_completion
 
 
 def main():
@@ -27,7 +27,7 @@ def main():
     t = time.time() - t0
     Z = res.X[:p, p:]
     err = np.abs(Z - M).max()
-    print(f"ManiSDP-TPU: optimum = {res.obj:0.8f}, eta = {res.eta:0.1e}, "
+    print(f"ManiSDP-JAX: optimum = {res.obj:0.8f}, eta = {res.eta:0.1e}, "
           f"recovery = {err:0.1e}, time = {t:0.2f}s")
 
 

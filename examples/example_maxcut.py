@@ -14,8 +14,8 @@ import time
 
 import numpy as np
 
-from manisdp_tpu import solve_maxcut_unitdiag
-from manisdp_tpu.frontends.gset import maxcut_cost
+from manisdp import solve_maxcut_unitdiag
+from manisdp.frontends.gset import maxcut_cost
 
 GSET = "/root/reference/data/Gset"
 
@@ -34,7 +34,7 @@ def main():
     S = Cd - np.diag(z)
     w = np.linalg.eigvalsh(S) if X.shape[0] <= 4000 else None
     eta = res.dinf if w is None else max(0.0, -w[0]) / (1 + w[-1])
-    print(f"ManiSDP-TPU: optimum = {res.obj:0.8f}, eta = {eta:0.1e}, "
+    print(f"ManiSDP-JAX: optimum = {res.obj:0.8f}, eta = {eta:0.1e}, "
           f"time = {t:0.2f}s")
 
 

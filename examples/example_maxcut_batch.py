@@ -1,5 +1,5 @@
 """Batched-instance MaxCut: solve a fleet of unit-diagonal SDPs
-concurrently (new TPU-native capability; the reference is one instance
+concurrently (new capability; the reference is one instance
 per MATLAB process).  Random graph family, one vmapped solve."""
 
 import os as _os
@@ -13,7 +13,7 @@ import time
 
 import numpy as np
 
-from manisdp_tpu import solve_maxcut_batch
+from manisdp import solve_maxcut_batch
 
 
 def random_graph_cost(n, density, seed):

@@ -14,8 +14,8 @@ import time
 
 import numpy as np
 
-from manisdp_tpu import solve_sdp
-from manisdp_tpu.frontends.lasserre import dense_sdp_relax
+from manisdp import solve_sdp
+from manisdp.frontends.lasserre import dense_sdp_relax
 
 
 def main():

@@ -12,10 +12,10 @@ import time
 
 import numpy as np
 
-from manisdp_tpu import solve_dual_sdp, solve_sdp
-from manisdp_tpu.frontends.moments import qsmom
-from manisdp_tpu.frontends.monomials import monomial_basis
-from manisdp_tpu.frontends.sos import qssos
+from manisdp import solve_dual_sdp, solve_sdp
+from manisdp.frontends.moments import qsmom
+from manisdp.frontends.monomials import monomial_basis
+from manisdp.frontends.sos import qssos
 
 
 def main():

@@ -22,7 +22,7 @@ import time
 import numpy as np
 import scipy.sparse as sp
 
-from manisdp_tpu import solve_unittrace
+from manisdp import solve_unittrace
 
 
 def quat_rot(q):

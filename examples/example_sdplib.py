@@ -10,8 +10,8 @@ _sys.path.insert(0, _os.path.abspath(
 import sys
 import time
 
-from manisdp_tpu import solve_sdp
-from manisdp_tpu.frontends.sdpa import read_sdpa
+from manisdp import solve_sdp
+from manisdp.frontends.sdpa import read_sdpa
 
 SDPLIB = "/root/reference/data/sdplib"
 
@@ -22,7 +22,7 @@ def main():
     if data.K.l:
         raise SystemExit(f"{name}: LP block (K.l={data.K.l}) unsupported")
     if len(data.K.s) > 1:
-        from manisdp_tpu.solvers.multiblock import solve_multiblock
+        from manisdp.solvers.multiblock import solve_multiblock
         t0 = time.time()
         res = solve_multiblock(data.At, data.b, data.c, ns=data.K.s, nob=0)
     else:

@@ -15,8 +15,8 @@ import time
 
 import numpy as np
 
-from manisdp_tpu.frontends.snl import snl_problem, sparse_moment_relax
-from manisdp_tpu.solvers.multiblock import solve_multiblock
+from manisdp.frontends.snl import snl_problem, sparse_moment_relax
+from manisdp.solvers.multiblock import solve_multiblock
 
 
 def main():
@@ -38,7 +38,7 @@ def main():
                            tr_maxiter=8, alpha=0.01, tol=1e-6,
                            max_outer=300)
     t = time.time() - t0
-    print(f"ManiSDP-TPU: optimum = {res.obj * maxc:0.8f} (planted 0), "
+    print(f"ManiSDP-JAX: optimum = {res.obj * maxc:0.8f} (planted 0), "
           f"eta = {res.eta:0.1e}, blocks = {ns}, time = {t:0.2f}s")
 
 

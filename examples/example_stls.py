@@ -15,10 +15,10 @@ import time
 
 import numpy as np
 
-from manisdp_tpu import solve_sdp
-from manisdp_tpu.frontends.stls import (extract_solution,
-                                        nearest_hankel_sdp, stls_objective)
-from manisdp_tpu.recipes import recipe
+from manisdp import solve_sdp
+from manisdp.frontends.stls import (extract_solution,
+                                    nearest_hankel_sdp, stls_objective)
+from manisdp.recipes import recipe
 
 
 def main():
@@ -34,7 +34,7 @@ def main():
     t = time.time() - t0
     val = stls_objective(res.obj, u1)
     u, z, resid = extract_solution(res.X, n1, n2)
-    print(f"ManiSDP-TPU: optimum = {val:0.8f}, eta = {res.eta:0.1e}, "
+    print(f"ManiSDP-JAX: optimum = {val:0.8f}, eta = {res.eta:0.1e}, "
           f"kernel resid = {resid:0.1e}, time = {t:0.2f}s")
 
 

@@ -13,8 +13,8 @@ import time
 import numpy as np
 import scipy.sparse as sp
 
-from manisdp_tpu import solve_unittrace
-from manisdp_tpu.frontends.workloads import lovasz_theta
+from manisdp import solve_unittrace
+from manisdp.frontends.workloads import lovasz_theta
 
 
 def main():
@@ -26,7 +26,7 @@ def main():
     res = solve_unittrace(At[:, :m], data.b[:m], data.c, data.K.s,
                           tol=1e-6, sigma0=1e5, sigma_max=1e8,
                           line_search=True)
-    print(f"ManiSDP-TPU: theta = {-res.obj:0.8f}, eta = {res.eta:0.1e}, "
+    print(f"ManiSDP-JAX: theta = {-res.obj:0.8f}, eta = {res.eta:0.1e}, "
           f"time = {time.time() - t0:0.2f}s")
 
 

@@ -3,9 +3,9 @@
 import numpy as np
 import scipy.sparse as sp
 
-from manisdp_tpu.frontends.convert import (sdpt3_to_sedumi, sedumi_to_mosek,
-                                           sedumi_to_sdpt3, smat, svec)
-from manisdp_tpu.frontends.sedumi import Cone, SedumiData
+from manisdp.frontends.convert import (sdpt3_to_sedumi, sedumi_to_mosek,
+                                       sedumi_to_sdpt3, smat, svec)
+from manisdp.frontends.sedumi import Cone, SedumiData
 
 RNG = np.random.RandomState(0)
 

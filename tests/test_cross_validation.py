@@ -7,15 +7,15 @@ equivalent of the reference's commented MOSEK/SDPLR baseline blocks
 import numpy as np
 import scipy.sparse as sp
 
-from manisdp_tpu import solve_maxcut_unitdiag, solve_sdp, solve_unitdiag
-from manisdp_tpu.frontends.convert import (mosek_task_constraints,
-                                           mosek_task_objective,
-                                           recover_mosek_sol_blk,
-                                           sedumi_to_mosek,
-                                           triangle_number)
-from manisdp_tpu.frontends.moments import bqpmom
-from manisdp_tpu.frontends.sedumi import Cone, SedumiData
-from manisdp_tpu.utils.ipm import solve_sdp_ipm
+from manisdp import solve_maxcut_unitdiag, solve_sdp, solve_unitdiag
+from manisdp.frontends.convert import (mosek_task_constraints,
+                                       mosek_task_objective,
+                                       recover_mosek_sol_blk,
+                                       sedumi_to_mosek,
+                                       triangle_number)
+from manisdp.frontends.moments import bqpmom
+from manisdp.frontends.sedumi import Cone, SedumiData
+from manisdp.utils.ipm import solve_sdp_ipm
 
 
 def diag_constraints(n):
@@ -75,7 +75,7 @@ def test_theta_vs_ipm():
     ipm = solve_sdp_ipm(At, b, c, n)
     np.testing.assert_allclose(-ipm.obj, np.sqrt(5.0), rtol=1e-8)
 
-    from manisdp_tpu import solve_unittrace
+    from manisdp import solve_unittrace
     res = solve_unittrace(At[:, :m], b[:m], c, n, verbose=False,
                           max_outer=500)
     assert res.status == 0

@@ -1,13 +1,14 @@
-"""Property tests for ops/dense_cert.DenseEighCert: the f32+refined
-certificate must reproduce np.linalg.eigh-level lam_min/lam_max on
-matrices with planted near-zero clusters (the structure the SOS-dual
-primal recovery matrix has at its optimum — rank-r positive part plus
-an (n-r)-fold near-zero cluster; see solvers/dual_al.py exact_cert)."""
+"""Property tests for ops/eigs.dense_certificate, the dense dual
+certificate (one device f64 eigh): it must reproduce np.linalg.eigh on
+matrices with planted near-zero clusters — the structure the SOS-dual
+primal recovery matrix has at its optimum (rank-r positive part plus an
+(n-r)-fold near-zero cluster; see solvers/dual_al.py exact_cert)."""
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from manisdp_tpu.ops.dense_cert import DenseEighCert
+from manisdp.ops.eigs import dense_certificate
 
 
 def _planted(n, r, cluster_spread, neg=0.0, seed=0):
@@ -24,62 +25,50 @@ def _planted(n, r, cluster_spread, neg=0.0, seed=0):
 
 
 @pytest.mark.parametrize("n,r", [(200, 3), (400, 17)])
-def test_near_certifies_planted_cluster(n, r):
+def test_certifies_planted_cluster(n, r):
     X, lam = _planted(n, r, cluster_spread=1e-10, seed=1)
-    dc = DenseEighCert(n, k=9)
-    res = dc.near(np.asarray(X), np.asarray(X, dtype=np.float32),
-                  target_rel=1e-9)
-    assert res.certified
+    res = dense_certificate(jnp.asarray(X), 9)
+    ref = np.linalg.eigvalsh(X)
     scale = 1.0 + abs(lam[-1])
-    # certified lower bound must be valid and tight
-    assert res.lam_min <= lam[0] + 1e-12 * scale
-    assert res.lam_min >= lam[0] - 2e-9 * scale
-    assert abs(res.lam_max - lam[-1]) <= 2e-9 * scale
+    assert abs(float(res.lam_min) - ref[0]) <= 1e-12 * scale
+    assert abs(float(res.lam_max) - ref[-1]) <= 1e-12 * scale
+    np.testing.assert_allclose(np.asarray(res.neg_vals), ref[:9],
+                               atol=1e-12 * scale)
 
 
-def test_near_detects_negative_eigenvalue():
+def test_detects_negative_eigenvalue():
     n, r = 300, 5
     X, lam = _planted(n, r, cluster_spread=1e-10, neg=3e-6, seed=2)
-    dc = DenseEighCert(n, k=9)
-    res = dc.near(np.asarray(X), np.asarray(X, dtype=np.float32),
-                  target_rel=1e-9)
-    assert res.certified
-    # dinf computed from the certified bound must see the planted
-    # negative shift (~3e-6 over lam_max ~ 50) above a 1e-8 tolerance
-    dinf = max(0.0, -res.lam_min) / (1.0 + abs(res.lam_max))
+    res = dense_certificate(jnp.asarray(X), 9)
+    # dinf from the certificate must see the planted negative shift
+    # (~3e-6 over lam_max ~ 50) above a 1e-8 tolerance
+    dinf = max(0.0, -float(res.lam_min)) / (1.0 + abs(float(res.lam_max)))
     assert dinf > 1e-8
-    assert res.num_neg >= 1
-    # escape vectors: lowest Ritz vector is a near-eigenvector (the
-    # cluster is degenerate, so compare residuals, not vectors)
-    v = res.neg_vecs[:, 0]
+    assert int(res.num_neg) == int(np.sum(np.linalg.eigvalsh(X) < 0))
+    # escape vectors: the lowest one is an eigenvector of X
+    v = np.asarray(res.neg_vecs)[:, 0]
     mu = float(v @ X @ v)
-    resid = np.linalg.norm(X @ v - mu * v)
-    assert resid <= 1e-6 * (1.0 + abs(res.lam_max))
+    assert np.linalg.norm(X @ v - mu * v) <= 1e-10 * (1.0 + abs(lam[-1]))
     assert mu < 0
 
 
-def test_far_tier_spectrum_and_vecs():
+def test_escape_vectors_orthonormal_and_shapes():
     n, r = 256, 4
-    X, lam = _planted(n, r, cluster_spread=1e-4, seed=3)
-    dc = DenseEighCert(n, k=9)
-    res = dc.far(np.asarray(X, dtype=np.float32))
-    scale = 1.0 + abs(lam[-1])
-    assert abs(res.lam_min - lam[0]) <= 1e-4 * scale
-    assert abs(res.lam_max - lam[-1]) <= 1e-4 * scale
-    assert res.neg_vecs.shape == (n, 9)
+    X, _ = _planted(n, r, cluster_spread=1e-4, seed=3)
+    res = dense_certificate(jnp.asarray(X), 9)
+    V = np.asarray(res.neg_vecs)
+    assert V.shape == (n, 9) and np.asarray(res.neg_vals).shape == (9,)
+    np.testing.assert_allclose(V.T @ V, np.eye(9), atol=1e-12)
 
 
-def test_near_random_dense_matches_eigh():
+def test_random_dense_matches_numpy_and_symmetrizes():
     rng = np.random.default_rng(4)
     n = 257
-    X = rng.standard_normal((n, n))
-    X = (X + X.T) / 2
+    A = rng.standard_normal((n, n))
+    X = (A + A.T) / 2
     lam = np.linalg.eigvalsh(X)
-    dc = DenseEighCert(n, k=5)
-    res = dc.near(np.asarray(X), np.asarray(X, dtype=np.float32),
-                  target_rel=1e-9)
-    assert res.certified
+    # an unsymmetric input is certified through its symmetric part
+    res = dense_certificate(jnp.asarray(X + 1e-3 * (A - A.T)), 5)
     scale = 1.0 + abs(lam[-1])
-    assert res.lam_min <= lam[0] + 1e-12 * scale
-    assert res.lam_min >= lam[0] - 1e-8 * scale
-    assert res.num_neg == int(np.sum(lam < 0))
+    assert abs(float(res.lam_min) - lam[0]) <= 1e-12 * scale
+    assert int(res.num_neg) == int(np.sum(lam < 0))

@@ -3,13 +3,13 @@ self-consistency test, example_bqp_dual.m:10-40)."""
 
 import numpy as np
 
-from manisdp_tpu.frontends.moments import bqpmom, qsmom
-from manisdp_tpu.frontends.monomials import monomial_basis
-from manisdp_tpu.frontends.sos import assemble_bqpsos, bqpsos, qssos
-from manisdp_tpu.solvers.dual_general import solve_dual_sdp
-from manisdp_tpu.solvers.dual_unitdiag import solve_dual_unitdiag
-from manisdp_tpu.solvers.general import solve_sdp
-from manisdp_tpu.solvers.unitdiag import solve_unitdiag
+from manisdp.frontends.moments import bqpmom, qsmom
+from manisdp.frontends.monomials import monomial_basis
+from manisdp.frontends.sos import assemble_bqpsos, bqpsos, qssos
+from manisdp.solvers.dual_general import solve_dual_sdp
+from manisdp.solvers.dual_unitdiag import solve_dual_unitdiag
+from manisdp.solvers.general import solve_sdp
+from manisdp.solvers.unitdiag import solve_unitdiag
 
 
 def test_bqp_primal_dual_agreement():

@@ -3,11 +3,11 @@
 import numpy as np
 import scipy.sparse as sp
 
-from manisdp_tpu.frontends.moments import monomial_basis
-from manisdp_tpu.frontends.sos import assemble_bqpsos, qssos
-from manisdp_tpu.solvers.dual_general import solve_dual_sdp
-from manisdp_tpu.solvers.dual_multiblock import solve_dual_multiblock
-from manisdp_tpu.solvers.dual_unitdiag import solve_dual_unitdiag
+from manisdp.frontends.moments import monomial_basis
+from manisdp.frontends.sos import assemble_bqpsos, qssos
+from manisdp.solvers.dual_general import solve_dual_sdp
+from manisdp.solvers.dual_multiblock import solve_dual_multiblock
+from manisdp.solvers.dual_unitdiag import solve_dual_unitdiag
 
 
 def bqp_instance(n, seed):

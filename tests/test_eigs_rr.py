@@ -10,8 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from manisdp_tpu.ops.eigs_rr import (DeviceCertSolver, RowCertSolver,
-                                     lobpcg_rows)
+from manisdp.ops.eigs_rr import (DeviceCertSolver, RowCertSolver,
+                                 lobpcg_rows)
 
 
 @pytest.fixture(scope="module")
@@ -122,4 +122,37 @@ def test_deflation_resolves_near_null_cluster(sym):
     # anywhere within ~resid of the cluster edge — the certificate
     # contract is the LOWER bound, asserted tightly below
     assert abs(float(res.neg_vals[0]) - ref[0]) < 1e-5
+    assert float(res.lam_min) <= ref[0] + 1e-9
+
+
+@pytest.mark.parametrize("scale", [1e-200, 1e200])
+def test_device_solver_ieee_range(sym, scale):
+    # the norm floors are IEEE-f64 ones: a spectrum far from 1 in
+    # either direction is certified without underflow/overflow
+    n, S, ref = sym
+    k = 5
+    solver = DeviceCertSolver(lambda V, ctx: V @ ctx, n, k)
+    res = solver.solve(jnp.asarray(scale * S), jax.random.PRNGKey(0),
+                       maxiter=300, tol=1e-10)
+    vals = np.asarray(res.neg_vals) / scale
+    assert np.all(np.isfinite(vals))
+    np.testing.assert_allclose(vals, ref[:k], atol=1e-8)
+    lam = float(res.lam_min) / scale
+    assert np.isfinite(lam)
+    assert lam <= ref[0] + 1e-9                      # lower bound
+
+
+def test_device_solver_wide_block():
+    # blocks wider than 42 rows (3b >= 129 Rayleigh-Ritz eighs) run
+    rs = np.random.RandomState(5)
+    n, k = 400, 48
+    A = rs.randn(n, n)
+    S = (A + A.T) / 2
+    ref = np.linalg.eigvalsh(S)
+    solver = DeviceCertSolver(lambda V, ctx: V @ ctx, n, k)
+    assert solver.b == k
+    res = solver.solve(jnp.asarray(S), jax.random.PRNGKey(3), maxiter=300,
+                       tol=1e-10)
+    np.testing.assert_allclose(np.asarray(res.neg_vals)[:8], ref[:8],
+                               atol=1e-7)
     assert float(res.lam_min) <= ref[0] + 1e-9

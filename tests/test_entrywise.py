@@ -12,8 +12,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from manisdp_tpu.frontends.workloads import matrix_completion
-from manisdp_tpu.ops.sparse import ConstraintOp, EntrywiseConstraintOp
+from manisdp.frontends.workloads import matrix_completion
+from manisdp.ops.sparse import ConstraintOp, EntrywiseConstraintOp
 
 
 @pytest.fixture(scope="module")
@@ -26,7 +26,7 @@ def ops():
 
 
 def test_detect_rejects_non_entrywise():
-    from manisdp_tpu.frontends.workloads import lovasz_theta
+    from manisdp.frontends.workloads import lovasz_theta
     data = lovasz_theta(20, 60, seed=1)     # trace row has n entries
     op = ConstraintOp.build(data.At, data.b, data.c, data.K.s)
     assert EntrywiseConstraintOp.detect(op) is None
@@ -72,8 +72,8 @@ def test_operator_equivalence(ops):
 
 
 def test_end_to_end_matches_dense_path():
-    from manisdp_tpu import solve_sdp
-    from manisdp_tpu.recipes import recipe
+    from manisdp import solve_sdp
+    from manisdp.recipes import recipe
     data, _ = matrix_completion(40, 40, rank=3, m_samples=1200, seed=3)
     _, kw = recipe("mc")
     kw = dict(kw, verbose=False)

@@ -8,8 +8,8 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from manisdp_tpu import solve_unittrace
-from manisdp_tpu.frontends.workloads import hamming_theta
+from manisdp import solve_unittrace
+from manisdp.frontends.workloads import hamming_theta
 
 
 def _solve_theta(data, **kw):

@@ -3,11 +3,11 @@ specialized qsmom / bqpmom generators."""
 
 import numpy as np
 
-from manisdp_tpu import solve_sdp, solve_unitdiag
-from manisdp_tpu.frontends.lasserre import (dense_sdp_relax,
-                                            poly_from_arrays)
-from manisdp_tpu.frontends.moments import bqpmom, qsmom
-from manisdp_tpu.frontends.monomials import monomial_basis
+from manisdp import solve_sdp, solve_unitdiag
+from manisdp.frontends.lasserre import (dense_sdp_relax,
+                                        poly_from_arrays)
+from manisdp.frontends.moments import bqpmom, qsmom
+from manisdp.frontends.monomials import monomial_basis
 
 
 def eval_basis(basis, x):

@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from manisdp_tpu.manifolds import Euclidean, Oblique, Sphere
+from manisdp.manifolds import Euclidean, Oblique, Sphere
 
 KEY = jax.random.PRNGKey(0)
 P, N = 3, 17

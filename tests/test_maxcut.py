@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from manisdp_tpu import SolverOptions, solve_maxcut_unitdiag
+from manisdp import SolverOptions, solve_maxcut_unitdiag
 
 
 def random_graph_cost(n, m_edges, seed):

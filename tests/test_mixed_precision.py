@@ -7,7 +7,7 @@ pure-f64 path.
 
 import numpy as np
 
-from manisdp_tpu import solve_maxcut_unitdiag
+from manisdp import solve_maxcut_unitdiag
 
 
 def _random_laplacian_cost(n=60, seed=0):
@@ -20,8 +20,8 @@ def _random_laplacian_cost(n=60, seed=0):
 
 
 def test_mixed_al_driver_matches_f64():
-    from manisdp_tpu import solve_unitdiag
-    from manisdp_tpu.frontends.moments import bqpmom
+    from manisdp import solve_unitdiag
+    from manisdp.frontends.moments import bqpmom
 
     rs = np.random.RandomState(1)
     n = 6
@@ -51,7 +51,7 @@ def test_mixed_matches_f64():
 
 
 def _bqp_sos(n, seed):
-    from manisdp_tpu.frontends.sos import assemble_bqpsos
+    from manisdp.frontends.sos import assemble_bqpsos
     rs = np.random.RandomState(seed)
     Q = rs.randn(n, n)
     Q = 0.5 * (Q + Q.T)
@@ -60,7 +60,7 @@ def _bqp_sos(n, seed):
 
 
 def test_mixed_dual_unitdiag_matches_f64():
-    from manisdp_tpu.solvers.dual_unitdiag import solve_dual_unitdiag
+    from manisdp.solvers.dual_unitdiag import solve_dual_unitdiag
 
     A, b, c, mb, f, dAAt = _bqp_sos(6, 3)
     maxb = np.max(np.abs(b))
@@ -74,9 +74,9 @@ def test_mixed_dual_unitdiag_matches_f64():
 
 
 def test_mixed_dual_general_matches_f64():
-    from manisdp_tpu.frontends.monomials import monomial_basis
-    from manisdp_tpu.frontends.sos import qssos
-    from manisdp_tpu.solvers.dual_general import solve_dual_sdp
+    from manisdp.frontends.monomials import monomial_basis
+    from manisdp.frontends.sos import qssos
+    from manisdp.solvers.dual_general import solve_dual_sdp
 
     n = 4
     rs = np.random.RandomState(4)
@@ -92,8 +92,8 @@ def test_mixed_dual_general_matches_f64():
 
 def test_mixed_multiblock_matches_f64():
     import scipy.sparse as sp
-    from manisdp_tpu.frontends.moments import bqpmom
-    from manisdp_tpu.solvers.multiblock import solve_multiblock
+    from manisdp.frontends.moments import bqpmom
+    from manisdp.solvers.multiblock import solve_multiblock
 
     rs = np.random.RandomState(5)
     blocks = []
@@ -115,7 +115,7 @@ def test_mixed_multiblock_matches_f64():
 
 
 def test_mixed_dual_multiblock_matches_f64():
-    from manisdp_tpu.solvers.dual_multiblock import solve_dual_multiblock
+    from manisdp.solvers.dual_multiblock import solve_dual_multiblock
 
     A, b, c, mb, f, dAAt = _bqp_sos(6, 6)
     maxb = np.max(np.abs(b))
@@ -131,7 +131,7 @@ def test_mixed_dual_multiblock_matches_f64():
 
 def test_batch_mixed_warns():
     import warnings
-    from manisdp_tpu import solve_maxcut_batch
+    from manisdp import solve_maxcut_batch
 
     Cs = np.stack([_random_laplacian_cost(16, s) for s in range(2)])
     with warnings.catch_warnings(record=True) as wrec:
@@ -157,8 +157,8 @@ def test_tcg32_maxcut_matches_f64():
 
 
 def test_tcg32_al_driver_matches_f64():
-    from manisdp_tpu import solve_unitdiag
-    from manisdp_tpu.frontends.moments import bqpmom
+    from manisdp import solve_unitdiag
+    from manisdp.frontends.moments import bqpmom
 
     rs = np.random.RandomState(1)
     n = 6
@@ -175,7 +175,7 @@ def test_tcg32_al_driver_matches_f64():
 
 
 def test_tcg32_dual_driver_matches_f64():
-    from manisdp_tpu.solvers.dual_unitdiag import solve_dual_unitdiag
+    from manisdp.solvers.dual_unitdiag import solve_dual_unitdiag
 
     A, b, c, mb, f, dAAt = _bqp_sos(6, 3)
     maxb = np.max(np.abs(b))

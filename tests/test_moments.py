@@ -8,8 +8,8 @@ cost against ground truth without involving the solver.
 
 import numpy as np
 
-from manisdp_tpu.frontends.moments import bqpmom, qsmom
-from manisdp_tpu.frontends.monomials import basis_index, monomial_basis
+from manisdp.frontends.moments import bqpmom, qsmom
+from manisdp.frontends.monomials import basis_index, monomial_basis
 
 
 def eval_basis(basis, x):
@@ -64,7 +64,7 @@ def test_bqp_end_to_end_tight():
     """Small BQP: the order-2 moment bound matches the brute-force
     optimum (relaxation is tight on this instance), solved by the
     unit-diagonal driver."""
-    from manisdp_tpu import solve_unitdiag
+    from manisdp import solve_unitdiag
 
     n = 6
     rs = np.random.RandomState(3)
@@ -89,7 +89,7 @@ def test_qs_end_to_end():
     """Small quartic-sphere instance through the general driver
     (example_qsphere.m:27 uses ManiSDP with theta=1e-2, tau1=0.02),
     verified against the moment bound <= sampled minimum."""
-    from manisdp_tpu import solve_sdp
+    from manisdp import solve_sdp
 
     n = 3
     rs = np.random.RandomState(5)

@@ -7,9 +7,9 @@ single-block drivers."""
 import numpy as np
 import scipy.sparse as sp
 
-from manisdp_tpu import solve_maxcut_unitdiag, solve_unitdiag
-from manisdp_tpu.frontends.moments import bqpmom
-from manisdp_tpu.solvers.multiblock import solve_multiblock
+from manisdp import solve_maxcut_unitdiag, solve_unitdiag
+from manisdp.frontends.moments import bqpmom
+from manisdp.solvers.multiblock import solve_multiblock
 
 
 def diag_constraints(n):

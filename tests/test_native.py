@@ -7,8 +7,8 @@ import pytest
 
 jnp = pytest.importorskip("jax.numpy")
 
-from manisdp_tpu.manifolds.product import MaskedProduct
-from manisdp_tpu.native import MultiblockKernels, apply_factored_cpu, \
+from manisdp.manifolds.product import MaskedProduct
+from manisdp.native import MultiblockKernels, apply_factored_cpu, \
     mat_symmetrize
 
 PS = [2, 3, 4]
@@ -109,7 +109,7 @@ def test_mat_symmetrize():
 
 def test_apply_factored_cpu_matches_device():
     import scipy.sparse as sp
-    from manisdp_tpu.ops.sparse import ConstraintOp
+    from manisdp.ops.sparse import ConstraintOp
 
     n, m, p = 9, 7, 3
     rs = np.random.RandomState(2)

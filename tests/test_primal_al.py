@@ -5,8 +5,8 @@ agreement."""
 import numpy as np
 import scipy.sparse as sp
 
-from manisdp_tpu import (solve_maxcut_unitdiag, solve_sdp, solve_unitdiag,
-                         solve_unittrace)
+from manisdp import (solve_maxcut_unitdiag, solve_sdp, solve_unitdiag,
+                     solve_unittrace)
 
 RNG = np.random.RandomState(7)
 
@@ -117,7 +117,7 @@ def test_slow_progress_detector():
     ``period`` iterations, flag when ALL residuals are strictly worse
     than at the previous checkpoint (after warmup); improving or flat
     residuals reset the baseline."""
-    from manisdp_tpu.solvers.common import SlowProgress
+    from manisdp.solvers.common import SlowProgress
 
     slow = SlowProgress(period=20, warmup=50)
     # mid-iteration calls never trigger
@@ -133,14 +133,14 @@ def test_slow_progress_detector():
 
 
 def test_dense_op_matches_sparse_op():
-    """The dense MXU constraint-operator path (DenseConstraintOp) must
+    """The dense-carrier constraint-operator path (DenseConstraintOp) must
     reproduce the factored path's trajectory on all three variants."""
     n = 8
     rs = np.random.RandomState(9)
     Q = rs.randn(n, n)
     Q = 0.5 * (Q + Q.T)
     e = rs.randn(n)
-    from manisdp_tpu.frontends.moments import bqpmom
+    from manisdp.frontends.moments import bqpmom
     d = bqpmom(n, Q, e)
 
     r_dense = solve_unitdiag(d.At, d.b, d.c, d.K.s, verbose=False,

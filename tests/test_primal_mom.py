@@ -6,9 +6,9 @@ reference's residual definitions."""
 import numpy as np
 import pytest
 
-from manisdp_tpu.frontends.moments import bqpmom
-from manisdp_tpu.solvers.primal_mom import solve_bqp_mom
-from manisdp_tpu.solvers.unitdiag import solve_unitdiag
+from manisdp.frontends.moments import bqpmom
+from manisdp.solvers.primal_mom import solve_bqp_mom
+from manisdp.solvers.unitdiag import solve_unitdiag
 
 
 def _instance(q, seed):

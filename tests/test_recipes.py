@@ -2,8 +2,8 @@
 
 import pytest
 
-from manisdp_tpu import recipes
-from manisdp_tpu.config import merged_options
+from manisdp import recipes
+from manisdp.config import merged_options
 
 
 def test_all_recipes_resolve_to_valid_options():

@@ -1,5 +1,5 @@
-"""Sanitizer-style checks (SURVEY §5 race/sanitizer row, VERDICT r2
-item 10): NaN-cleanliness of one outer iteration per driver family
+"""Sanitizer-style checks (SURVEY §5 race/sanitizer row):
+NaN-cleanliness of one outer iteration per driver family
 under jax.debug_nans, and bitwise determinism of full solves.
 
 The reference is single-threaded MATLAB (nothing to race); the JAX
@@ -12,11 +12,11 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from manisdp_tpu import (solve_dual_unitdiag, solve_maxcut_unitdiag,
-                         solve_sdp, solve_unitdiag)
-from manisdp_tpu.frontends.moments import bqpmom
-from manisdp_tpu.frontends.sos import assemble_bqpsos
-from manisdp_tpu.frontends.workloads import matrix_completion
+from manisdp import (solve_dual_unitdiag, solve_maxcut_unitdiag,
+                     solve_sdp, solve_unitdiag)
+from manisdp.frontends.moments import bqpmom
+from manisdp.frontends.sos import assemble_bqpsos
+from manisdp.frontends.workloads import matrix_completion
 
 
 def _bqp(n=6, seed=0):

@@ -4,8 +4,8 @@ data/sdplib/README lists certified objective values)."""
 import numpy as np
 import pytest
 
-from manisdp_tpu.frontends.sdpa import read_sdpa
-from manisdp_tpu.solvers.general import solve_sdp
+from manisdp.frontends.sdpa import read_sdpa
+from manisdp.solvers.general import solve_sdp
 
 SDPLIB = "/root/reference/data/sdplib"
 

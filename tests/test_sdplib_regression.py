@@ -17,8 +17,8 @@ import os
 import numpy as np
 import pytest
 
-from manisdp_tpu import solve_sedumi
-from manisdp_tpu.frontends.sdpa import read_sdpa
+from manisdp import solve_sedumi
+from manisdp.frontends.sdpa import read_sdpa
 
 SDPLIB = os.environ.get("MANISDP_SDPLIB_DIR",
                         "/root/reference/data/sdplib")
@@ -42,8 +42,7 @@ SS30 = dict(tr_maxiter=20, tr_maxinner=80, sigma0=1.0, sigma_min=1e-1,
             tau1=1e-2, tau2=1e-1, max_outer=600)
 
 # (name, certified optimum from data/sdplib/README, tol, eta bound,
-#  obj rtol, kw).  The mcp* rows run the full 1e-8 contract (VERDICT
-# r3 item 6; measured 6-20 s each on the 2-vCPU host).  gpp100's eta
+#  obj rtol, kw).  The mcp* rows run the full 1e-8 contract.  gpp100's eta
 # floors at ~4.5e-8 (sigma-controller limit cycle at the boundary —
 # the certified optimum is matched to 1e-8 relative); arch0/control1
 # exercise the K.l folding dispatch path on classes the REFERENCE
@@ -65,7 +64,7 @@ TABLE = [
     ("truss3", -9.109996e+00, 1e-6, 1e-5, 1e-4, TRUSS),
     ("truss4", -9.009996e+00, 1e-6, 1e-5, 1e-4, TRUSS),
     # arch0 floors at eta ~6e-4 / obj rel ~1.4e-3 (round-5 sweep,
-    # logs/arch0_diag*.log: tighter tau or larger sigma both blow the
+    # tighter tau or larger sigma both blow the
     # gap; analysis in NOTES.md) — bounds tightened 5-10x from r4
     ("arch0", 5.66517e-01, 1e-8, 1e-3, 2e-3, ARCH),
     # control1 tightened 100x in round 5 (escape gating on dinf <= tol
@@ -78,7 +77,7 @@ TABLE = [
 # run_tests.sh to keep the suite under ~12 min on the 2-vCPU host
 SLOW_TABLE = [
     # full 1e-8 contract: converged at iter 500, 609 s on the 2-vCPU
-    # host, optimum matched to 7 digits (logs/probe_slow_rows.log)
+    # host, optimum matched to 7 digits
     ("maxG11", 6.291648e+02, 1e-8, 1e-8, 1e-6, dict(max_outer=700)),
     # eta floors at ~1.0e-6 (measured at 300 and 600 outers alike);
     # optimum matched to 5e-7 relative

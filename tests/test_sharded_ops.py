@@ -13,9 +13,9 @@ import pytest
 import scipy.sparse as sp
 from jax.sharding import PartitionSpec as P
 
-from manisdp_tpu.ops.sparse import ConstraintOp
-from manisdp_tpu.parallel.mesh import make_mesh
-from manisdp_tpu.parallel.sharded_ops import ShardedConstraintOp
+from manisdp.ops.sparse import ConstraintOp
+from manisdp.parallel.mesh import make_mesh
+from manisdp.parallel.sharded_ops import ShardedConstraintOp
 
 needs8 = pytest.mark.skipif(len(jax.devices()) < 8,
                             reason="needs 8 devices")
@@ -121,7 +121,7 @@ def test_sharded_ops_match_single():
 @needs8
 def test_sharded_al_driver_matches_single():
     """Full unitdiag AL driver, sharded vs single: identical history."""
-    from manisdp_tpu import solve_unitdiag
+    from manisdp import solve_unitdiag
 
     n = 16
     rows = np.arange(n) * n + np.arange(n)
@@ -151,7 +151,7 @@ def test_sharded_al_driver_matches_single():
 def test_sharded_lobpcg_certificate_path():
     """Force the matrix-free LOBPCG certificate (the large-n path) under
     shard_map: results must match the single-device LOBPCG solve."""
-    from manisdp_tpu import solve_unitdiag
+    from manisdp import solve_unitdiag
 
     n = 96          # lobpcg needs 5 * block < n
     rows = np.arange(n) * n + np.arange(n)
@@ -174,7 +174,7 @@ def test_sharded_lobpcg_certificate_path():
 @needs8
 def test_sharded_general_sdpa_converges():
     """The Euclidean (general) variant also runs sharded end-to-end."""
-    from manisdp_tpu import solve_sdp
+    from manisdp import solve_sdp
 
     n, m = 12, 8
     rs = np.random.RandomState(0)

@@ -12,11 +12,11 @@ Oracles:
 import numpy as np
 import pytest
 
-from manisdp_tpu import solve_sdp
-from manisdp_tpu.frontends.lasserre import dense_sdp_relax
-from manisdp_tpu.frontends.snl import (snl_mom_sparse, snl_problem,
-                                       sparse_moment_relax)
-from manisdp_tpu.solvers.multiblock import solve_multiblock
+from manisdp import solve_sdp
+from manisdp.frontends.lasserre import dense_sdp_relax
+from manisdp.frontends.snl import (snl_mom_sparse, snl_problem,
+                                   sparse_moment_relax)
+from manisdp.solvers.multiblock import solve_multiblock
 
 
 def test_single_clique_matches_dense():

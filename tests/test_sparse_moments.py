@@ -3,10 +3,10 @@ end-to-end multiblock solve vs brute force."""
 
 import numpy as np
 
-from manisdp_tpu.frontends.sparse_moments import (bqpmom_sparse, clique_chain,
-                                                  sparse_objective_basis)
-from manisdp_tpu.frontends.monomials import monomial_basis
-from manisdp_tpu.solvers.multiblock import solve_multiblock
+from manisdp.frontends.sparse_moments import (bqpmom_sparse, clique_chain,
+                                              sparse_objective_basis)
+from manisdp.frontends.monomials import monomial_basis
+from manisdp.solvers.multiblock import solve_multiblock
 
 
 def eval_basis(basis, x):
@@ -45,8 +45,8 @@ def test_sparse_bqp_dual_agreement():
     """bqpsos_sparse dual route == bqpmom_sparse primal route
     (the reference's own self-consistency check,
     example_bqp_sparse.m:30-60)."""
-    from manisdp_tpu.frontends.sparse_moments import bqpsos_sparse
-    from manisdp_tpu.solvers.dual_multiblock import solve_dual_multiblock
+    from manisdp.frontends.sparse_moments import bqpsos_sparse
+    from manisdp.solvers.dual_multiblock import solve_dual_multiblock
 
     n, cliques, nsp, coe = _instance(3, 5, 3)
     data = bqpmom_sparse(n, cliques, coe)

@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import scipy.sparse as sp
 
-from manisdp_tpu.ops.sparse import ConstraintOp, SymCOO
+from manisdp.ops.sparse import ConstraintOp, SymCOO
 
 RNG = np.random.default_rng(0)
 

@@ -3,11 +3,11 @@ moment feasibility + primal/dual multiblock agreement."""
 
 import numpy as np
 
-from manisdp_tpu.frontends.monomials import monomial_basis
-from manisdp_tpu.frontends.sparse_moments import (qsmom_sparse, qssos_sparse,
-                                                  sparse_quartic_basis)
-from manisdp_tpu.solvers.dual_multiblock import solve_dual_multiblock
-from manisdp_tpu.solvers.multiblock import solve_multiblock
+from manisdp.frontends.monomials import monomial_basis
+from manisdp.frontends.sparse_moments import (qsmom_sparse, qssos_sparse,
+                                              sparse_quartic_basis)
+from manisdp.solvers.dual_multiblock import solve_dual_multiblock
+from manisdp.solvers.multiblock import solve_multiblock
 
 N = 7
 CLIQUES = [[0, 1, 2, 3], [3, 4, 5, 6]]

@@ -4,10 +4,10 @@ independent alternating local optimizer (reference example/example_stls.m)."""
 
 import numpy as np
 
-from manisdp_tpu import solve_sdp
-from manisdp_tpu.frontends.stls import (extract_solution, hankel_matrix,
-                                        nearest_hankel_sdp, stls_objective)
-from manisdp_tpu.recipes import recipe
+from manisdp import solve_sdp
+from manisdp.frontends.stls import (extract_solution, hankel_matrix,
+                                    nearest_hankel_sdp, stls_objective)
+from manisdp.recipes import recipe
 
 
 def _f_of_z(z, u1, n1, n2):

@@ -13,10 +13,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from manisdp_tpu.ops.dualops import DualOp
-from manisdp_tpu.ops.symdual import (SymDualOp, _num_classes,
-                                     bqpsos_expanded_sparse,
-                                     expanded_masks)
+from manisdp.ops.dualops import DualOp
+from manisdp.ops.symdual import (SymDualOp, _num_classes,
+                                 bqpsos_expanded_sparse,
+                                 expanded_masks)
 
 Q_SEED = 7
 
@@ -57,7 +57,7 @@ def _canon_slots(q):
 
 def _row_of_mask(q):
     """monomial mask -> sparse row index map (matching the generator)."""
-    from manisdp_tpu.frontends.monomials import monomial_basis
+    from manisdp.frontends.monomials import monomial_basis
     sp4 = monomial_basis(q, 4, max_power=1)
     pow2 = (1 << np.arange(q, dtype=np.uint64))
     masks4 = (sp4.astype(np.uint64).T * pow2).sum(axis=1)
@@ -112,7 +112,7 @@ def test_adjoint_matches_sparse_and_ignores_dontcare():
     pair_masks = np.bitwise_xor.outer(em, em)   # class mask of every entry
     # per-degree flat layout masks: build flat y by mapping every slot's
     # monomial mask through the class values
-    from manisdp_tpu.ops.symdual import _dontcare_mask
+    from manisdp.ops.symdual import _dontcare_mask
     o1 = 1 + q
     flat_masks = np.zeros(top.m, dtype=np.uint64)
     flat_masks[0] = 0
@@ -149,8 +149,8 @@ def test_cost_grad_hess_stats_match_sparse():
                        nn, 0, dAAt)
     top0 = SymDualOp.build_bqpsos(Q, e, q)
     top = dataclasses.replace(top0, b=top0.b / maxb, bA=top0.bA / maxb)
-    from manisdp_tpu.solvers.dual_al import (DUAL_VARIANTS, _make_problem,
-                                             _make_stats)
+    from manisdp.solvers.dual_al import (DUAL_VARIANTS, _make_problem,
+                                         _make_stats)
     variant = DUAL_VARIANTS["dual_unitdiag"]
     problem, _ = _make_problem(variant, None)
     stats = _make_stats(variant, None)
@@ -187,8 +187,8 @@ def test_cost_grad_hess_stats_match_sparse():
 
 def test_expanded_solve_matches_original_optimum():
     import dataclasses
-    from manisdp_tpu.frontends.sos import assemble_bqpsos
-    from manisdp_tpu.solvers.dual_unitdiag import solve_dual_unitdiag
+    from manisdp.frontends.sos import assemble_bqpsos
+    from manisdp.solvers.dual_unitdiag import solve_dual_unitdiag
     q = 8
     Q, e = _rand_bqp(q, seed=11)
     A, b, c, mb, f, dAAt = assemble_bqpsos(Q, e, q)

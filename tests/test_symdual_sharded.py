@@ -10,8 +10,8 @@ import jax.numpy as jnp
 import pytest
 from jax.sharding import Mesh
 
-from manisdp_tpu.ops import symdual
-from manisdp_tpu.parallel.symdual_sharded import ShardedSymDualOp
+from manisdp.ops import symdual
+from manisdp.parallel.symdual_sharded import ShardedSymDualOp
 
 
 def _mesh(ndev):

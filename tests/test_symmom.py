@@ -6,9 +6,9 @@ from math import comb
 import numpy as np
 import pytest
 
-from manisdp_tpu.frontends.moments import bqpmom
-from manisdp_tpu.frontends.monomials import monomial_basis
-from manisdp_tpu.ops.symmom import SymMomOp
+from manisdp.frontends.moments import bqpmom
+from manisdp.frontends.monomials import monomial_basis
+from manisdp.ops.symmom import SymMomOp
 
 
 def _colex_pairs(q):

@@ -6,8 +6,8 @@ make_line_search) must let it converge to the 1e-6 KKT oracle."""
 import numpy as np
 import scipy.sparse as sp
 
-from manisdp_tpu import solve_unittrace
-from manisdp_tpu.frontends.workloads import lovasz_theta
+from manisdp import solve_unittrace
+from manisdp.frontends.workloads import lovasz_theta
 
 
 def test_theta_converges():

@@ -9,8 +9,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from manisdp_tpu.core import Problem, TROptions, make_trustregions
-from manisdp_tpu.manifolds import Euclidean, Sphere
+from manisdp.core import Problem, TROptions, make_trustregions
+from manisdp.manifolds import Euclidean, Sphere
 
 
 def test_rayleigh_quotient_sphere():
